@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from tpu_lanczos.graphs import generators
-from tpu_lanczos.eval import oracle
-from tpu_lanczos.eval.check import check_ans, write_ans, read_ans, convergence_study
-from tpu_lanczos.core.pipeline import expm_action, pad_vector
-from tpu_lanczos.core.checkpoint import lanczos_checkpointed, LanczosCheckpoint
-from tpu_lanczos.core.lanczos import lanczos
-from tpu_lanczos.core import expmv
-from tpu_lanczos.kernels.formats import pack
+from krylov_centrality.graphs import generators
+from krylov_centrality.eval import oracle
+from krylov_centrality.eval.check import check_ans, write_ans, read_ans, convergence_study
+from krylov_centrality.core.pipeline import expm_action, pad_vector
+from krylov_centrality.core.checkpoint import lanczos_checkpointed, LanczosCheckpoint
+from krylov_centrality.core.lanczos import lanczos
+from krylov_centrality.core import expmv
+from krylov_centrality.kernels.formats import pack
 
 
 def test_check_ans_metrics():
@@ -62,10 +62,10 @@ def test_checkpoint_resume_bit_identical(tmp_path):
     # (lanczos_checkpointed computes it with x=x) or the snapshot is
     # silently rejected and the "resume" is a fresh run that proves
     # nothing.
-    from tpu_lanczos.core.lanczos import lanczos_init, lanczos_range
+    from krylov_centrality.core.lanczos import lanczos_init, lanczos_range
 
-    from tpu_lanczos.core import checkpoint as _ck
-    from tpu_lanczos.core.checkpoint import run_fingerprint
+    from krylov_centrality.core import checkpoint as _ck
+    from krylov_centrality.core.checkpoint import run_fingerprint
 
     carry, x_norm = lanczos_init(dg, x, k)
     carry = lanczos_range(dg, carry, 0, 14)
@@ -74,7 +74,7 @@ def test_checkpoint_resume_bit_identical(tmp_path):
         q=np.asarray(carry[0]), q_prev=np.asarray(carry[1]),
         q_basis=np.asarray(carry[2]), alpha=np.asarray(carry[3]),
         beta=np.asarray(carry[4]), x_norm=float(x_norm),
-        fingerprint=run_fingerprint(dg, x.dtype, k, False, "auto", x=x),
+        fingerprint=run_fingerprint(dg, x.dtype, k, False, x=x),
     ).save(p)
     # prove the resume actually starts at j=14 (not a silent fresh run):
     # record the j0 of every lanczos_range call
@@ -102,7 +102,7 @@ def test_checkpoint_resume_bit_identical(tmp_path):
 
 def test_checkpoint_rejects_mismatched_run(tmp_path):
     """A snapshot from a different graph (same padded size), dtype, or
-    flags must be ignored, not resumed (ADVICE round 1)."""
+    flags must be ignored, not resumed."""
     k = 12
     p = str(tmp_path / "ck.npz")
     g_a = generators.uniform_random(400, 1200, seed=5)
@@ -120,139 +120,24 @@ def test_checkpoint_rejects_mismatched_run(tmp_path):
     np.testing.assert_array_equal(np.asarray(res_b.alpha), np.asarray(ref_b.alpha))
 
     # dtype / flag changes also invalidate
-    from tpu_lanczos.core.checkpoint import run_fingerprint
+    from krylov_centrality.core.checkpoint import run_fingerprint
 
-    assert run_fingerprint(dg_b, np.float64, k, False, "auto") != \
-        run_fingerprint(dg_b, np.float32, k, False, "auto")
-    assert run_fingerprint(dg_b, np.float64, k, False, "auto") != \
-        run_fingerprint(dg_b, np.float64, k, True, "auto")
+    assert run_fingerprint(dg_b, np.float64, k, False) != \
+        run_fingerprint(dg_b, np.float32, k, False)
+    assert run_fingerprint(dg_b, np.float64, k, False) != \
+        run_fingerprint(dg_b, np.float64, k, True)
 
 
 def test_checkpoint_rejects_nonpositive_chunk(tmp_path):
     """chunk <= 0 must raise, not spin forever re-writing j_done=0."""
-    import jax.numpy as jnp
-
-    from tpu_lanczos.core.checkpoint import (
-        lanczos_alphabeta_df_checkpointed,
-    )
-    from tpu_lanczos.kernels.cpg import pack_cpg
-
     g = generators.uniform_random(300, 900, seed=1)
     dg = pack(g)
     x = pad_vector(np.ones(g.n), dg.n_pad, np.float64)
-    with pytest.raises(ValueError, match="chunk"):
-        lanczos_checkpointed(dg, x, 8,
-                             checkpoint_path=str(tmp_path / "a.npz"),
-                             chunk=0)
-    cg = pack_cpg(g)
-    xh = cg.realmask.astype(jnp.float32)
-    with pytest.raises(ValueError, match="chunk"):
-        lanczos_alphabeta_df_checkpointed(
-            cg, xh, jnp.zeros_like(xh), 8,
-            checkpoint_path=str(tmp_path / "b.npz"), chunk=-1,
-            interpret=True)
-
-
-def test_df64_alphabeta_checkpoint_bit_identical(tmp_path):
-    """df64 pass-1 checkpoint (the europe-scale long stage): a chunked +
-    interrupted + resumed run reproduces the one-shot pass bit-for-bit
-    on both the hi and lo streams."""
-    import jax.numpy as jnp
-
-    from tpu_lanczos.core.checkpoint import (
-        AlphaBetaDFCheckpoint, lanczos_alphabeta_df_checkpointed,
-    )
-    from tpu_lanczos.core.lanczos_df import lanczos_alphabeta_df
-    from tpu_lanczos.kernels.cpg import pack_cpg
-
-    g = generators.barabasi_albert(2000, 5, seed=2, use_native=False)
-    cg = pack_cpg(g)
-    x_hi = cg.realmask.astype(jnp.float32)
-    x_lo = jnp.zeros_like(x_hi)
-    k = 24
-    p = str(tmp_path / "df.npz")
-
-    a_ref, b_ref, xn_ref = lanczos_alphabeta_df(cg, x_hi, x_lo, k,
-                                                interpret=True)
-    # chunked fresh run
-    a1, b1, xn1 = lanczos_alphabeta_df_checkpointed(
-        cg, x_hi, x_lo, k, checkpoint_path=p, chunk=7, interpret=True)
-    assert AlphaBetaDFCheckpoint.load(p).j_done == k
-    for got, ref in ((a1, a_ref), (b1, b_ref), (xn1, xn_ref)):
-        np.testing.assert_array_equal(np.asarray(got[0]),
-                                      np.asarray(ref[0]))
-        np.testing.assert_array_equal(np.asarray(got[1]),
-                                      np.asarray(ref[1]))
-    # simulate preemption: rewind the snapshot cursor to a mid-run state
-    # by re-running only 2 chunks, then resume
-    snap = AlphaBetaDFCheckpoint.load(p)
-    from tpu_lanczos.core.lanczos_df import (
-        _alphabeta_df_init_dev, lanczos_alphabeta_df_range,
-    )
-
-    q0h, q0l, _, _ = _alphabeta_df_init_dev(x_hi, x_lo)
-    zk = jnp.zeros((k,), jnp.float32)
-    carry = (q0h, q0l, jnp.zeros_like(q0h), jnp.zeros_like(q0h),
-             zk, zk, zk, zk)
-    carry = lanczos_alphabeta_df_range(cg, carry, 0, 14, interpret=True)
-    host = [np.asarray(c) for c in carry]
-    AlphaBetaDFCheckpoint(
-        j_done=14, k=k,
-        **dict(zip(AlphaBetaDFCheckpoint._FIELDS, host)),
-        xnh=snap.xnh, xnl=snap.xnl, fingerprint=snap.fingerprint,
-    ).save(p)
-    a2, b2, _ = lanczos_alphabeta_df_checkpointed(
-        cg, x_hi, x_lo, k, checkpoint_path=p, chunk=7, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a2[0]), np.asarray(a_ref[0]))
-    np.testing.assert_array_equal(np.asarray(a2[1]), np.asarray(a_ref[1]))
-    np.testing.assert_array_equal(np.asarray(b2[0]), np.asarray(b_ref[0]))
-
-
-def test_df64_checkpoint_rejects_different_start(tmp_path):
-    """A df64 pass-1 snapshot written for one start vector must not be
-    resumed for another (fingerprint covers head crc + exact norm)."""
-    import jax.numpy as jnp
-
-    from tpu_lanczos.core.checkpoint import (
-        lanczos_alphabeta_df_checkpointed,
-    )
-    from tpu_lanczos.core.lanczos_df import (
-        lanczos_alphabeta_df, split_f64,
-    )
-    from tpu_lanczos.kernels.cpg import pack_cpg
-
-    g = generators.uniform_random(1000, 4000, seed=3)
-    cg = pack_cpg(g)
-    k = 16
-    p = str(tmp_path / "df.npz")
-    x1h = cg.realmask.astype(jnp.float32)
-    x1l = jnp.zeros_like(x1h)
-    lanczos_alphabeta_df_checkpointed(cg, x1h, x1l, k,
-                                      checkpoint_path=p, chunk=5,
-                                      interpret=True)
-    x2 = np.ones(g.n)
-    x2[0] = 2.0
-    hi, lo = split_f64(cg.permute_in(x2, np.float64))
-    x2h, x2l = jnp.asarray(hi), jnp.asarray(lo)
-    a2, b2, _ = lanczos_alphabeta_df_checkpointed(
-        cg, x2h, x2l, k, checkpoint_path=p, chunk=5, interpret=True)
-    a_ref, b_ref, _ = lanczos_alphabeta_df(cg, x2h, x2l, k,
-                                           interpret=True)
-    np.testing.assert_array_equal(np.asarray(a2[0]), np.asarray(a_ref[0]))
-    np.testing.assert_array_equal(np.asarray(b2[0]), np.asarray(b_ref[0]))
-
-
-def test_expm_action_df_checkpointed_matches(tmp_path):
-    """expm_action_df(checkpoint_path=...) equals the plain df64 run."""
-    from tpu_lanczos.core.lanczos_df import expm_action_df
-
-    g = generators.uniform_random(800, 3200, seed=4)
-    r_plain = expm_action_df(g, k=20)
-    r_ck = expm_action_df(g, k=20,
-                          checkpoint_path=str(tmp_path / "c.npz"),
-                          checkpoint_chunk=6)
-    np.testing.assert_array_equal(r_ck.ans, r_plain.ans)
-    np.testing.assert_array_equal(r_ck.alpha, r_plain.alpha)
+    for chunk in (0, -1):
+        with pytest.raises(ValueError, match="chunk"):
+            lanczos_checkpointed(dg, x, 8,
+                                 checkpoint_path=str(tmp_path / "a.npz"),
+                                 chunk=chunk)
 
 
 def test_checkpointed_pipeline_answer(tmp_path):
@@ -268,7 +153,7 @@ def test_checkpointed_pipeline_answer(tmp_path):
 
 
 def test_cli_generated_graph(capsys):
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "500", "-e", "1500", "-k", "20", "--dtype", "float64", "-v"])
     assert rc == 0
@@ -282,8 +167,8 @@ def test_cli_generated_graph(capsys):
 
 
 def test_cli_mtx_and_write_ans(tmp_path, capsys):
-    from tpu_lanczos.graphs import io as gio
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.graphs import io as gio
+    from krylov_centrality.cli.main import main
 
     g = generators.uniform_random(200, 600, seed=1)
     p = str(tmp_path / "g.mtx")
@@ -297,7 +182,7 @@ def test_cli_mtx_and_write_ans(tmp_path, capsys):
 
 
 def test_cli_sharded(capsys):
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "400", "-e", "1200", "-k", "15", "--dtype", "float64",
                "--shards", "4"])
@@ -306,66 +191,27 @@ def test_cli_sharded(capsys):
     assert "4-shard mesh" in out
 
 
-def test_load_cpg_extends_short_ghost_tail(tmp_path):
-    """Packs saved before the batched group DMA may lack the GROUP_PAD
-    ghost-tile tail; load_cpg must extend them so the kernel's group
-    windows stay in bounds."""
-    import numpy as np
-
-    from tpu_lanczos.graphs import generators
-    from tpu_lanczos.kernels import cpg as C
-
-    g = generators.barabasi_albert(5000, 6, seed=2, use_native=False)
-    cg = C.pack_cpg(g, sub=128)
-    path = str(tmp_path / "old_pack.npz")
-    C.save_cpg(cg, path)
-    # simulate an old pack: strip the tail down to zero ghost tiles
-    z = dict(np.load(path))
-    for i in range(int(z["n_levels"])):
-        T = int(z[f"lv{i}_counts"].sum())
-        z[f"lv{i}_l1"] = z[f"lv{i}_l1"][: T * cg.sub]
-        z[f"lv{i}_l2"] = z[f"lv{i}_l2"][: T * 128]
-        for k in ("s_ids", "d_ids", "run_ids"):
-            z[f"lv{i}_{k}"] = z[f"lv{i}_{k}"][:T]
-    np.savez(path, **z)
-    cg2 = C.load_cpg(path)
-    for lv in cg2.levels:
-        tail = lv["s_ids"].shape[0] - int(np.asarray(lv["counts"]).sum())
-        assert tail >= C.GROUP_PAD
-    # still computes the right SpMV
-    import jax.numpy as jnp
-
-    from tpu_lanczos.kernels.spmv_cpg import spmv_cpg
-
-    rng = np.random.default_rng(0)
-    xr = rng.standard_normal(g.n)
-    y = cg2.permute_out(np.asarray(spmv_cpg(
-        cg2, jnp.asarray(cg2.permute_in(xr, np.float64)), interpret=True)))
-    want = g.to_scipy() @ xr
-    np.testing.assert_allclose(y, want, rtol=1e-11, atol=1e-11)
-
-
 def test_checkpoint_rejects_different_start_vector(tmp_path):
     """A snapshot written for start vector x1 must not be resumed for
     x2: the fingerprint covers x (q0 and the whole basis depend on it)."""
-    from tpu_lanczos.core.checkpoint import run_fingerprint
-    from tpu_lanczos.core.pipeline import best_device_pack
+    from krylov_centrality.core.checkpoint import run_fingerprint
+    from krylov_centrality.core.pipeline import best_device_pack
 
     g = generators.uniform_random(500, 2000, seed=3)
     dg = best_device_pack(g)
     x1 = np.ones(g.n)
     x2 = np.ones(g.n)
     x2[0] = 2.0
-    fp1 = run_fingerprint(dg, np.float64, 8, False, "auto", x=x1)
-    fp2 = run_fingerprint(dg, np.float64, 8, False, "auto", x=x2)
+    fp1 = run_fingerprint(dg, np.float64, 8, False, x=x1)
+    fp2 = run_fingerprint(dg, np.float64, 8, False, x=x2)
     assert fp1 != fp2
 
 
 def test_checkpoint_corrupt_file_forces_fresh_run(tmp_path):
     """A truncated/corrupt checkpoint file falls back to a fresh run
     instead of aborting the decomposition."""
-    from tpu_lanczos.core.checkpoint import lanczos_checkpointed
-    from tpu_lanczos.core.pipeline import best_device_pack
+    from krylov_centrality.core.checkpoint import lanczos_checkpointed
+    from krylov_centrality.core.pipeline import best_device_pack
 
     g = generators.uniform_random(400, 1600, seed=4)
     dg = best_device_pack(g)
@@ -381,7 +227,7 @@ def test_checkpoint_corrupt_file_forces_fresh_run(tmp_path):
 def test_cli_pipeline_flag(capsys):
     """--pipeline N serves the query through expm_action_pipelined and
     reports per-query wall; the answer/cross-check path is unchanged."""
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "500", "-e", "1500", "-k", "20", "--dtype",
                "float64", "--pipeline", "3", "-v"])
@@ -392,16 +238,8 @@ def test_cli_pipeline_flag(capsys):
     assert rel < 1e-10
 
 
-def test_cli_pipeline_flag_rejects_df64():
-    from tpu_lanczos.cli.main import main
-
-    rc = main(["-n", "300", "-e", "900", "-k", "10", "--dtype", "df64",
-               "--pipeline", "2"])
-    assert rc == 2
-
-
 def test_cli_estrada_subgraph(capsys):
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "500", "-b", "3", "-k", "40", "--dtype", "float64",
                "--estrada", "32", "--subgraph", "32"])
@@ -415,7 +253,7 @@ def test_cli_estrada_subgraph(capsys):
 
 
 def test_cli_estrada_flag_guards(capsys):
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     assert main(["-n", "200", "-e", "600", "--estrada", "8",
                  "--topk", "5"]) == 2
@@ -424,7 +262,7 @@ def test_cli_estrada_flag_guards(capsys):
 
 
 def test_cli_estrada_subgraph_sharded(capsys):
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "500", "-b", "3", "-k", "40", "--dtype", "float64",
                "--estrada", "32", "--subgraph", "32", "--shards", "4"])
@@ -437,29 +275,29 @@ def test_cli_estrada_subgraph_sharded(capsys):
 
 
 def test_cli_estrada_sharded_cpg(capsys):
-    """--estrada --shards --fmt cpg rides the Pallas production kernel
-    (no silent remap to the XLA formats)."""
-    from tpu_lanczos.cli.main import main
+    """--estrada --shards --fmt hyb packs the sharded hybrid format once
+    for the estimator."""
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "400", "-b", "3", "-k", "30", "--dtype", "float64",
-               "--estrada", "16", "--shards", "4", "--fmt", "cpg"])
+               "--estrada", "16", "--shards", "4", "--fmt", "hyb"])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "ShardedCPG" in out
+    assert "ShardedGraph" in out
     rel = float(out.split("rel err ")[1].split("\n")[0])
     assert rel < 0.1
 
 
 def test_cli_sharded_df64(capsys):
-    """--shards --dtype df64 drives expm_action_df_sharded: f64-grade
-    accuracy against the serial oracle (VERDICT round-4 ask #3)."""
-    from tpu_lanczos.cli.main import main
+    """--shards --dtype float64 drives the native-f64 sharded pipeline:
+    f64-grade accuracy against the serial oracle."""
+    from krylov_centrality.cli.main import main
 
-    rc = main(["-n", "1024", "-b", "4", "-k", "25", "--dtype", "df64",
+    rc = main(["-n", "1024", "-b", "4", "-k", "25", "--dtype", "float64",
                "--shards", "4"])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "4-shard mesh pipeline (df64)" in out
+    assert "4-shard mesh pipeline (float64)" in out
     rel = float(out.split("relative ")[1].split(")")[0])
     assert rel < 1e-12
 
@@ -468,7 +306,7 @@ def test_cli_topk_fused_and_host(capsys):
     """--topk serves via the fused one-program path by default (--eig
     device) and via the split host-LAPACK path on request; both agree
     on the top nodes."""
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "800", "-b", "4", "-k", "20", "--topk", "5",
                "--no-serial"])
@@ -485,7 +323,7 @@ def test_cli_topk_fused_and_host(capsys):
 
 def test_cli_estrada_heat_kernel(capsys):
     """--func heat:t --estrada N composes: general-f deflated trace."""
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "500", "-b", "3", "-k", "40", "--dtype", "float64",
                "--estrada", "32", "--func", "heat:1.0", "--deflate", "8"])
@@ -497,7 +335,7 @@ def test_cli_estrada_heat_kernel(capsys):
 
 
 def test_cli_estrada_func_guards():
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     # --func is exp-only for --subgraph (the fused shifted-space
     # diagonal program); --estrada composes single-chip AND sharded
@@ -508,7 +346,7 @@ def test_cli_estrada_func_guards():
 def test_cli_dos(tmp_path, capsys):
     """--dos prints the spectral interval + density summary and dumps a
     (lambda, density) table; works single-chip and sharded."""
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     p = str(tmp_path / "dos.txt")
     rc = main(["-n", "400", "-b", "3", "-k", "40", "--dtype", "float64",
@@ -525,7 +363,7 @@ def test_cli_dos(tmp_path, capsys):
 
 
 def test_cli_estrada_heat_sharded(capsys):
-    from tpu_lanczos.cli.main import main
+    from krylov_centrality.cli.main import main
 
     rc = main(["-n", "400", "-b", "3", "-k", "30", "--dtype", "float64",
                "--estrada", "16", "--func", "heat:1.0", "--shards", "4"])
@@ -537,7 +375,10 @@ def test_cli_estrada_heat_sharded(capsys):
 
 
 def test_cli_estrada_sharded_rejects_cst():
-    from tpu_lanczos.cli.main import main
+    import pytest
 
-    assert main(["-n", "200", "-e", "600", "--estrada", "8",
-                 "--shards", "2", "--fmt", "cst"]) == 2
+    from krylov_centrality.cli.main import main
+
+    with pytest.raises(SystemExit):  # argparse rejects the removed format
+        main(["-n", "200", "-e", "600", "--estrada", "8",
+              "--shards", "2", "--fmt", "cst"])

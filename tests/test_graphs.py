@@ -6,9 +6,9 @@ I/O, serial/lib/adjMatrix.cc:18-52, write path adjMatrix.cc:53-69)."""
 import numpy as np
 import pytest
 
-from tpu_lanczos.graphs.csr import CSRGraph
-from tpu_lanczos.graphs import io as gio
-from tpu_lanczos.graphs import generators
+from krylov_centrality.graphs.csr import CSRGraph
+from krylov_centrality.graphs import io as gio
+from krylov_centrality.graphs import generators
 
 
 def test_from_edges_symmetrize_dedup():

@@ -5,8 +5,8 @@ SURVEY.md §4: analytic test, serial/tests/numerical_test.cc)."""
 import numpy as np
 import pytest
 
-from tpu_lanczos.graphs import generators
-from tpu_lanczos.eval import oracle
+from krylov_centrality.graphs import generators
+from krylov_centrality.eval import oracle
 
 
 @pytest.fixture(scope="module")

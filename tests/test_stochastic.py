@@ -6,9 +6,9 @@ probes so every number is reproducible."""
 import numpy as np
 import pytest
 
-from tpu_lanczos.core import stochastic
-from tpu_lanczos.eval import oracle
-from tpu_lanczos.graphs import generators
+from krylov_centrality.core import stochastic
+from krylov_centrality.eval import oracle
+from krylov_centrality.graphs import generators
 
 
 @pytest.fixture(scope="module")
@@ -71,17 +71,17 @@ def test_trace_fa_tr_a_squared(ba200):
 
 
 def test_stats_filter_drops_and_raises():
-    """Non-finite probes are dropped (with the count reported) and an
-    all-bad batch raises instead of returning an empty estimate."""
-    from tpu_lanczos.core.stochastic import _stats_filter
+    """A non-finite probe result raises instead of being dropped or
+    retried: the estimate never silently uses fewer probes."""
+    from krylov_centrality.core.stochastic import _probe_rows
 
-    good = (np.ones(3), np.ones(2), 1.0, None)
-    bad = (np.full(3, np.nan), np.ones(2), 1.0, None)
-    with pytest.warns(UserWarning, match="dropped 1/2"):
-        kept, dropped = _stats_filter([good, bad])
-    assert len(kept) == 1 and dropped == 1
-    with pytest.raises(RuntimeError, match="non-finite"):
-        _stats_filter([bad, bad])
+    good = (np.ones((2, 3)), np.ones((2, 3)), np.ones(2), np.zeros((2, 0)))
+    rows = _probe_rows(good, 2, 0)
+    assert len(rows) == 2 and rows[0][3] is None
+    bad = (np.ones((2, 3)), np.ones((2, 3)), np.array([1.0, np.nan]),
+           np.zeros((2, 0)))
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        _probe_rows(bad, 2, 0)
 
 
 def test_trace_fa_heat_deflated(ba200):
@@ -137,7 +137,7 @@ def test_estrada_deflated(ba200, tr_true):
 
 
 def test_estrada_f32(ba200, tr_true):
-    # f32 device path (the TPU default): noise floor well above f32 eps
+    # f32 device path (the default dtype): noise floor well above f32 eps
     r = stochastic.estrada_index(ba200, k=40, probes=16, deflate=8,
                                  seed=0, dtype="float32")
     assert abs(r.estimate - tr_true) / tr_true < 2e-2
@@ -199,11 +199,11 @@ def test_diag_trace_consistency(ba200, tr_true):
 
 
 def test_estrada_sharded_vs_dense(ba200, tr_true):
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
+    import krylov_centrality as kc
+    from krylov_centrality.dist.mesh import make_mesh
 
     mesh = make_mesh(4)
-    r = tl.estrada_index_sharded(ba200, k=40, probes=32, mesh=mesh,
+    r = kc.estrada_index_sharded(ba200, k=40, probes=32, mesh=mesh,
                                  dtype="float64")
     assert r.deflated > 0
     # deflated mesh estimator matches the dense truth like the
@@ -214,10 +214,10 @@ def test_estrada_sharded_vs_dense(ba200, tr_true):
 
 
 def test_estrada_sharded_plain(ba200, tr_true):
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
+    import krylov_centrality as kc
+    from krylov_centrality.dist.mesh import make_mesh
 
-    r = tl.estrada_index_sharded(ba200, k=40, probes=32, mesh=make_mesh(4),
+    r = kc.estrada_index_sharded(ba200, k=40, probes=32, mesh=make_mesh(4),
                                  deflate=0, dtype="float64")
     assert r.deflated == 0
     assert abs(r.estimate - tr_true) / tr_true < 0.5  # plain = noisy
@@ -225,10 +225,10 @@ def test_estrada_sharded_plain(ba200, tr_true):
 
 
 def test_subgraph_sharded_vs_dense(ba200, diag_true):
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
+    import krylov_centrality as kc
+    from krylov_centrality.dist.mesh import make_mesh
 
-    dr = tl.subgraph_centrality_sharded(ba200, k=30, probes=32,
+    dr = kc.subgraph_centrality_sharded(ba200, k=30, probes=32,
                                         mesh=make_mesh(4), dtype="float64")
     d_est = dr.full_diag()
     assert dr.deflated > 0
@@ -239,46 +239,15 @@ def test_subgraph_sharded_vs_dense(ba200, diag_true):
     assert int(dr.top_nodes(1)[0]) == int(np.argmax(diag_true))
 
 
-def test_estrada_sharded_cpg_vs_dense(ba200, tr_true):
-    """fmt='cpg': the sharded estimators ride the production Pallas
-    kernel (interpret mode on the CPU mesh) — same accuracy band as the
-    XLA-format path."""
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
-
-    mesh = make_mesh(4)
-    r = tl.estrada_index_sharded(ba200, k=40, probes=32, mesh=mesh,
-                                 dtype="float64", fmt="cpg")
-    assert r.deflated > 0
-    assert abs(r.estimate - tr_true) / tr_true < 5e-3
-    assert r.rel_stderr < 2e-2
-    assert r.dropped == 0
-
-
-def test_subgraph_sharded_cpg_vs_dense(ba200, diag_true):
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
-
-    dr = tl.subgraph_centrality_sharded(ba200, k=30, probes=32,
-                                        mesh=make_mesh(4),
-                                        dtype="float64", fmt="cpg")
-    d_est = dr.full_diag()
-    assert dr.deflated > 0
-    assert np.corrcoef(d_est, diag_true)[0, 1] > 0.999
-    rel = np.linalg.norm(d_est - diag_true) / np.linalg.norm(diag_true)
-    assert rel < 0.05
-    assert int(dr.top_nodes(1)[0]) == int(np.argmax(diag_true))
-
-
 def test_spectral_density_sharded_vs_dense(ba200):
     """Sharded DOS (fused one-program probes) matches the dense-blurred
     truth like the single-chip estimator."""
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
+    import krylov_centrality as kc
+    from krylov_centrality.dist.mesh import make_mesh
 
-    r = tl.spectral_density_sharded(ba200, k=60, probes=32,
+    r = kc.spectral_density_sharded(ba200, k=60, probes=32,
                                     mesh=make_mesh(4), seed=0,
-                                    dtype="float64", fmt="cpg")
+                                    dtype="float64", fmt="auto")
     d_true = oracle.dos_dense(ba200, r.grid, r.sigma)
     assert abs(np.trapezoid(r.density, r.grid) - 1.0) < 1e-3
     assert np.trapezoid(np.abs(r.density - d_true), r.grid) < 0.1
@@ -288,51 +257,27 @@ def test_spectral_density_sharded_vs_dense(ba200):
 
 def test_trace_fa_sharded_heat(ba200):
     """General-f trace on the mesh: fused one-program probes + deflation
-    matching the dense oracle, on both pack types."""
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
+    matching the dense oracle, on both sharded pack widths."""
+    import krylov_centrality as kc
+    from krylov_centrality.dist.mesh import make_mesh
 
     f = lambda ev: np.exp(-ev)
     tr_true = oracle.trace_fa_dense(ba200, f)
     mesh = make_mesh(4)
-    for fmt in ("auto", "cpg"):
-        r = tl.trace_fa_sharded(ba200, f=f, k=40, probes=32, mesh=mesh,
+    for fmt in ("auto", "ell"):
+        r = kc.trace_fa_sharded(ba200, f=f, k=40, probes=32, mesh=mesh,
                                 deflate=8, k_deflate=80, seed=0,
                                 dtype="float64", fmt=fmt)
         assert r.deflated == 8, fmt
         assert abs(r.estimate - tr_true) / tr_true < 0.1, fmt
-        assert r.dropped == 0
-
-
-def test_alphabeta_cpg_sharded_matches_quadrature(ba200):
-    """The CPG-sharded Q-free pass produces a valid quadrature rule:
-    same check as the XLA-format pass below."""
-    import jax, jax.numpy as jnp
-    from tpu_lanczos.dist.cpg_sharded import (lanczos_alphabeta_cpg_sharded,
-                                              pack_cpg_sharded)
-    from tpu_lanczos.dist.mesh import ROWS, make_mesh
-
-    mesh = make_mesh(4)
-    sg = pack_cpg_sharded(ba200, 4, mesh=mesh)
-    assert sg.overlap and sg.n_main == 2  # overlap split active
-    x = np.ones(ba200.n)
-    x_dev = jnp.asarray(sg.permute_in(x, np.float64))
-    a, b, xn = jax.device_get(
-        lanczos_alphabeta_cpg_sharded(sg, x_dev, 30, mesh, interpret=True))
-    dec = oracle.lanczos(ba200, x, 30)
-    assert np.allclose(a[:12], dec.alpha[:12], rtol=1e-9, atol=1e-9)
-    assert np.allclose(b[:12], dec.beta[:12], rtol=1e-9, atol=1e-9)
-    q_sh = stochastic.gauss_quadrature(a, b[:29], float(xn) ** 2, np.exp)
-    q_dense = oracle.quadrature_dense(ba200, x, np.exp)
-    assert abs(q_sh - q_dense) / q_dense < 1e-8
 
 
 def test_sharded_setup_rejects_bad_fmt(ba200):
-    import tpu_lanczos as tl
-    from tpu_lanczos.dist.mesh import make_mesh
+    import krylov_centrality as kc
+    from krylov_centrality.dist.mesh import make_mesh
 
     with pytest.raises(ValueError, match="sharded estimators support"):
-        tl.estrada_index_sharded(ba200, k=10, probes=2,
+        kc.estrada_index_sharded(ba200, k=10, probes=2,
                                  mesh=make_mesh(2), fmt="cst")
 
 
@@ -341,9 +286,9 @@ def test_alphabeta_sharded_matches_quadrature(ba200):
     # fp reduction order) as the oracle for the same start vector
     import jax, jax.numpy as jnp
     import scipy.linalg
-    from tpu_lanczos.dist.mesh import ROWS, make_mesh
-    from tpu_lanczos.dist.lanczos import lanczos_alphabeta_sharded
-    from tpu_lanczos.dist.partition import pack_sharded
+    from krylov_centrality.dist.mesh import ROWS, make_mesh
+    from krylov_centrality.dist.lanczos import lanczos_alphabeta_sharded
+    from krylov_centrality.dist.partition import pack_sharded
 
     mesh = make_mesh(4)
     sg = pack_sharded(ba200, 4, fmt="auto", mesh=mesh)
